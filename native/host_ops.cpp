@@ -1,7 +1,7 @@
 // Native host-side runtime ops for repeatresolver_tpu.
 //
 // The reference implements its whole runtime in C (pthreads + popcount
-// loops). Our compute path is JAX/XLA on TPU; these are the remaining
+// loops). Our compute path is JAX/XLA on the GPU; these are the remaining
 // host-side hot loops whose semantics are inherently sequential /
 // order-dependent and therefore stay on the CPU:
 //

@@ -1,7 +1,7 @@
-"""repeatresolver_tpu — a TPU-native repeat-resolution engine.
+"""repeatresolver_tpu — a JAX repeat-resolution engine.
 
-A from-scratch JAX/XLA/Pallas re-architecture of the capabilities of
-PhilippBongartz/RepeatResolver (reference mounted at /root/reference):
+A from-scratch JAX re-architecture of the capabilities of
+PhilippBongartz/RepeatResolver:
 
   simulate -> cut -> initial-align -> realign (sum-of-pairs MSA refinement)
            -> column statistics (MaxCorrs) -> windowed clustering
@@ -11,9 +11,11 @@ Layout:
   models/    pipeline stages as array programs (simulator, read_cutter,
              initial_aligner, realigner, maxcorr, resolver, window,
              assessment)
-  ops/       compute kernels (wavefront edit-distance DP, banded realign
-             DP in Pallas, bit-group intersections as MXU matmuls,
-             log-space hypergeometric tails)
+  ops/       compute kernels (wavefront edit-distance DP, banded and
+             staircase realign DP with a CUDA fill, bit-group
+             intersections as integer matmuls, log-space
+             hypergeometric tails)
+  platform   the one GPU/CPU route decision
   parallel/  mesh construction, sharded sweeps, collectives
   utils/     file formats (the reference's on-disk contract), checkpoints
 

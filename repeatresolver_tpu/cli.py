@@ -115,6 +115,8 @@ def main(argv=None):
                         "reference trajectory, slower)")
 
     args = p.parse_args(argv)
+    from . import platform
+    platform.setup_compile_cache()
     from .config import (InitialAlignerConfig, MaxCorrConfig,
                          PipelineConfig, ReadCutterConfig,
                          RealignerConfig, ResolverConfig,

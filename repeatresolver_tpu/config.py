@@ -65,7 +65,7 @@ class InitialAlignerConfig:
     """InitialAligner.c:705-706,750."""
     error_cutoff: float = 0.30  # -e
     max_read_length: int = 40000
-    # TPU-native extension: band the glocal DP around the length-scaled
+    # extension: band the glocal DP around the length-scaled
     # diagonal (0 = reference full matrix). Validated against full DP —
     # near-diagonal repeat pieces get identical alignments; only
     # already-garbage (class 'l') alignments can differ.
@@ -74,18 +74,19 @@ class InitialAlignerConfig:
 
 @dataclass(frozen=True)
 class RealignerConfig:
-    """PW_ReAligner.c:1619,1625-1626 plus TPU batching knobs."""
+    """PW_ReAligner.c:1619,1625-1626 plus device batching knobs."""
     bandwidth: int = 1000      # -b (half band = bandwidth//2)
     max_rounds: int = 10000    # PW_ReAligner.c:1681
-    # TPU-native extensions (no reference equivalent):
+    # extensions (no reference equivalent):
     block_rows: int = 1        # rows realigned per Jacobi block; 1 == exact
                                # Gauss-Seidel reference trajectory
-    mode: str = "auto"         # auto (staircase on TPU, exact on CPU) |
+    mode: str = "auto"         # auto (staircase on GPU, exact on CPU) |
                                # "exact" reference band | "staircase"
-                               # chunked band (turbo; ops/staircase_realign)
-    kernel: str = "auto"       # auto (pallas on TPU, native on CPU) |
-                               # xla | pallas (staircase) |
-                               # native (C++ host kernel, exact mode)
+                               # chunked band (ops/staircase_realign)
+    kernel: str = "auto"       # auto (platform.realign_route: cuda on
+                               # GPU, xla for bands past 3072, native
+                               # on CPU) | xla | cuda (staircase fill,
+                               # GPU) | native (C++ host, exact)
     checkpoint_every_round: bool = True  # best-MSA persistence semantics of
                                # PW_ReAligner.c:1741
     mesh_devices: int = 0      # >1: shard each block's rows over a

@@ -2,7 +2,7 @@
 
 Re-architecture of MaxCorrelation.c. The reference's row bitsets +
 popcount loops become dense one-hot matrices whose intersections are
-matrix products (|A∩B| = binary inner product — MXU work on TPU); the
+matrix products (|A∩B| = binary inner product); the
 hypergeometric tail is the vectorized log-space implementation in
 ops/hypergeom.py.
 
@@ -245,7 +245,7 @@ def compute_maxcorrs_native(msa: np.ndarray, cfg: MaxCorrConfig,
 
 def compute_maxcorrs_device(msa: np.ndarray, cfg: MaxCorrConfig,
                             tile: int = 256, mesh=None) -> np.ndarray:
-    """Device path: one-hot groups built on device, MXU int8 matmuls per
+    """Device path: one-hot groups built on device, int8 matmuls per
     tile pair, f32 hypergeometric on device, per-group max accumulated
     on device — the whole gated scan (seed gates, >=gap pair distance,
     coverage break, per-group max) is ONE dispatch: a fori_loop over

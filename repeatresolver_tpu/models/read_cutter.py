@@ -168,13 +168,12 @@ def cut_reads(template: np.ndarray, reads: list[np.ndarray],
     n = len(reads)
 
     # Batched final DP rows: query = part, target = read. Native C++
-    # kernel on CPU backends; device wavefront DP otherwise.
-    import jax
-
+    # kernel on the CPU platform; device wavefront DP on the GPU.
+    from .. import platform
     from ..utils import native as nat
     rows0 = np.empty((n, lt), np.int32)
     rows_last = np.empty((n, lt), np.int32)
-    use_native = jax.default_backend() == "cpu" and \
+    use_native = platform.name() == "cpu" and \
         nat.get_lib() is not None
     if use_native:
         padded = np.full((n, lt), 99, np.int8)

@@ -372,7 +372,7 @@ def group_refinement(gd: GroupData, maxcorrs: np.ndarray, cutoff: float,
             catc = grows[catg]
             si_rep = np.repeat(np.arange(len(sc)), lens)
             if use_dev:
-                # MXU path: one [G, S] product on the device-resident
+                # device path: one [G, S] product on the device-resident
                 # group matrix replaces the unique-candidate-row host
                 # matmul (and its np.unique); values exact int32
                 gr1_full = devmm.matmul_t(gff_o, gd.coverage[sc // 5])
@@ -544,7 +544,7 @@ def relative_vars(gd: GroupData, u: np.ndarray, u_no: int,
         return []
     # pairwise within the cluster, j >= i + 100 (>= 20 columns)
     sub = gd.groups[np.ix_(sel_idx, np.nonzero(u_group)[0])]
-    schnitt = devmm.matmul_t(sub, sub)       # exact int32, MXU-shaped
+    schnitt = devmm.matmul_t(sub, sub)       # exact int32 matmul
     gr = sub.sum(axis=1).astype(np.int64)
     cov = int(u_group.sum())
     marked = np.zeros(sel_idx.size, bool)
@@ -571,7 +571,7 @@ def relative_vars(gd: GroupData, u: np.ndarray, u_no: int,
 
 def _grmatch_matrix(a: np.ndarray, b: np.ndarray, sc: int) -> np.ndarray:
     """GrMatch over bit-vectors: sc*64 - hamming (:141-153). The
-    [n, vars] x [vars, n] intersection product is MXU-shaped and
+    [n, vars] x [vars, n] intersection product is a matmul,
     device-routed when big enough (ops/devmm; exact int32)."""
     if a.shape[1] == 0:
         both = np.zeros((a.shape[0], b.shape[0]), np.int64)

@@ -6,7 +6,7 @@ own contribution removed (block-Jacobi; block size 1 reproduces the
 reference Gauss-Seidel trajectory exactly — tested).
 
 Per scan step x (sequential over sequence positions), all rows process
-their bandwidth-W window in parallel on the VPU:
+their bandwidth-W window in parallel:
 
     A[y]  = min( M[x-1,y-1] + Score(y, base_x),
                  M[x-1,y]   + max(Score(y,5), Score(y-1,5)) )   0<y<C-1
@@ -17,10 +17,9 @@ Off-band-above reads of the previous row pay the per-column gap cost
 (the reference's MatrixOut jump rule, :285-295) via the gap-cost prefix
 sums G. Move codes carry the backtracker's priority (gap > diagonal >
 insert, :1375-1410); the backtrack runs on device — here as a lockstep
-while_loop over unpacked codes (the exact-band / XLA-staircase paths),
-on the production TPU path as the Pallas walk kernel over packed codes
-(ops/pallas_backtrack.py) — so only the rewritten rows and insert
-lists leave the chip.
+while_loop over unpacked codes (the exact band), for the staircase
+band as a scan over packed codes (ops/staircase_realign.py) — so only
+the rewritten rows and insert lists leave the device.
 """
 from __future__ import annotations
 
@@ -63,10 +62,10 @@ def banded_fill(counts, rows_old, seqs, ways, lengths, ncols, *,
     Returns (codes uint8 [B, L, W], final_band int32 [B, W],
              final_anf int32 [B]).
 
-    Two-level structure for HBM efficiency: an outer scan over chunks
+    Two-level structure for memory efficiency: an outer scan over chunks
     of `chunk` sequence positions gathers all banded cost windows for
     the chunk in one pass ([B, T, W] tensors); the inner scan over the
-    chunk's positions is then gather-free — pure elementwise VPU work
+    chunk's positions is then gather-free — pure elementwise work
     plus one associative prefix-min per position.
     """
     w = bandwidth
@@ -218,9 +217,8 @@ def entry_scan(final_band, final_anf, entry_bound, ncols, *, cpad,
     ycols = jnp.arange(cpad, dtype=jnp.int32)[None, :]
     j = ycols - final_anf[:, None]
     # vals[y] = band[y - anf]: place the band at lanes [anf, anf+w) by
-    # a per-row binary-decomposed right-shift — a take_along_axis
-    # gather here runs at ~1 element/cycle on TPU (tens of ms at paper
-    # cpad); the log-step shift is pure vector selects
+    # a per-row binary-decomposed right-shift (pure vector selects,
+    # no gather)
     vals = jnp.concatenate(
         [final_band.astype(jnp.int32),
          jnp.full((b, max(cpad - w, 0)), BIG, jnp.int32)],
@@ -245,28 +243,22 @@ def entry_scan(final_band, final_anf, entry_bound, ncols, *, cpad,
 
 
 @functools.partial(jax.jit, static_argnames=("bandwidth", "cpad",
-                                              "time_major", "unroll"))
+                                              "unroll"))
 def entry_and_backtrack(codes, final_band, final_anf, seqs, anf_full,
                         entry_bound, lengths, ncols, *, cpad,
-                        bandwidth, time_major=False, unroll=None):
+                        bandwidth, unroll=None):
     """Entry-column scan + lockstep backtracking on device.
 
-    This is the XLA walk over UNPACKED move codes — the exact-band and
-    XLA-staircase fallback paths. The production TPU path (packed
-    time-major Pallas codes) backtracks through the Pallas walk kernel
-    instead (ops/pallas_backtrack.py), which replaced the packed
-    record/replay loop that used to live here: that loop cost ~1.6x
-    the DP fill and its carried-DUS while_loop deadlocks XLA:CPU under
-    jaxlib 0.9.0.
+    This is the walk over UNPACKED move codes [B, L, W] — the exact
+    band's. Staircase fills emit packed codes, which
+    staircase_realign.entry_and_walk reads instead.
 
     anf_full: int32 [B, L] band start per sequence position (reference
     mode: max(0, way-bh); staircase mode: the per-chunk window starts).
     entry_bound: int32 [B] lowest-exclusive column of the entry scan
     (reference: max(-1, way[len-1]-bh)). ncols is the real (dynamic)
     column count; cpad the static padded capacity. bandwidth is the
-    width of the code rows (W, or W+chunk for staircase).
-    time_major: codes laid out [Lc, B, W] instead of [B, Lc, W]. Lc
-    may exceed L (chunk padding); reads are bounded by lengths <= L.
+    width of the code rows (W, or W+widen*chunk for staircase).
     unroll: moves resolved per while_loop trip. Every move consumes at
     least one of x or y, so the positions the next U moves can visit
     all lie in the U x U patch [x-U+1, x] x [y-U+1, y]; the patch's
@@ -292,27 +284,15 @@ def entry_and_backtrack(codes, final_band, final_anf, seqs, anf_full,
     au = jnp.arange(u, dtype=jnp.int32)
 
     # patch code reads: [B, U(x), U(y)] worth of 2-bit codes in one
-    # gather from a flat view (three-vector indexing would need a
-    # gather per sub-step; the flat index fits int32 at paper shapes —
-    # guarded below)
-    if time_major:
-        lc, _, wc = codes.shape
-        assert lc * b * wc < (1 << 31), "codes exceed int32 flat index"
-        codes_flat = codes.reshape(-1)
+    # gather from a per-row flat view
+    _, lc, wc = codes.shape
+    codes_bflat = codes.reshape(b, lc * wc)
 
-        def read_patch(xs_p, off_p):
-            idx = (xs_p[:, :, None] * (b * wc)
-                   + bidx[:, None, None] * wc + off_p)
-            return jnp.take(codes_flat, idx).astype(jnp.int32)
-    else:
-        _, lc, wc = codes.shape
-        codes_bflat = codes.reshape(b, lc * wc)
-
-        def read_patch(xs_p, off_p):
-            idx = xs_p[:, :, None] * wc + off_p
-            return jnp.take_along_axis(
-                codes_bflat, idx.reshape(b, -1),
-                axis=1).reshape(b, u, u).astype(jnp.int32)
+    def read_patch(xs_p, off_p):
+        idx = xs_p[:, :, None] * wc + off_p
+        return jnp.take_along_axis(
+            codes_bflat, idx.reshape(b, -1),
+            axis=1).reshape(b, u, u).astype(jnp.int32)
 
     oob_col = jnp.int32(cpad)            # drop-mode scatter sink
     oob_slot = jnp.int32(MAX_INSERTS)

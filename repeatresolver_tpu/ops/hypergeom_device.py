@@ -1,7 +1,7 @@
 """On-device (f32) hypergeometric upper-tail significance.
 
 The exact float64 series (ops/hypergeom.py) is the golden-parity path;
-this is the production TPU path for MaxCorrs at scale, where ~1e8-1e9
+this is the device path for MaxCorrs at scale, where ~1e8-1e9
 pair evaluations per MSA make host evaluation impossible.
 
 Every gammaln argument in the reference significance
@@ -12,7 +12,7 @@ corrupt Z by ~0.25 at 4096 rows — the log-factorial values are
 precomputed on host in float64, stored as a double-float (hi, lo) f32
 pair, gathered on device, and combined with compensated (TwoSum)
 accumulation. Absolute error of the 9-term log-binomial sum is ~1e-6;
-gathers are also cheaper than VPU lgamma evaluations.
+gathers are also cheaper than on-device lgamma evaluations.
 
 Accuracy contract with the table: Z to ~1e-5 for significant pairs
 (the remaining error is the f32 geometric-decay series, fixed K

@@ -3,8 +3,8 @@
 The reference's outermost parallelism is a human operator launching
 RepeatResolver once per window, possibly on different machines, and
 merging the results through the on-disk subdivision files
-(/root/reference/README.md:104-106 + Window.py). The TPU-native
-equivalent is jax.distributed across hosts (SURVEY.md §2.3): processes
+(the reference README.md:104-106 + Window.py). The JAX equivalent is
+jax.distributed across processes (SURVEY.md §2.3): processes
 join a coordination service, each takes a round-robin slice of the
 windows, and the merge is the same file contract — the flank-connection
 chain (models/assessment.multi_step_resolution) reads every window's
@@ -29,17 +29,24 @@ def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> tuple[int, int]:
     """jax.distributed entry path. With a coordinator address (or the
-    standard JAX env vars / TPU pod metadata), joins the distributed
-    runtime and returns (process_index, process_count); without one,
-    stays single-process. Idempotent."""
+    standard JAX env vars), joins the distributed runtime and returns
+    (process_index, process_count); without one, stays single-process.
+    Idempotent. On a GPU host each process takes one local card, the
+    one numbered by its process id: a process that opened every card
+    would reserve most of each card's memory and the next process
+    would run out."""
     import jax
+
+    from .. import platform
     if coordinator_address is None and not os.environ.get(
             "JAX_COORDINATOR_ADDRESS"):
         return 0, 1
+    local = platform.process_devices(process_id)
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
-            num_processes=num_processes, process_id=process_id)
+            num_processes=num_processes, process_id=process_id,
+            local_device_ids=local)
     except RuntimeError:
         pass  # already initialized
     return jax.process_index(), jax.process_count()

@@ -1,12 +1,12 @@
 """Multi-chip sharding of the pipeline's two heavy phases.
 
 The reference's only parallelism is single-node pthreads (SURVEY.md
-§2.3). The TPU-native equivalents:
+§2.3). The device-mesh equivalents:
 
   * realignment sweeps: rows data-parallel over the mesh 'rows' axis,
     column histogram replicated; after each block the one-hot count
-    deltas are psum'd over ICI — the collective analogue of the
-    reference's disjoint-stripe thread writes.
+    deltas are psum'd across the devices — the collective analogue of
+    the reference's disjoint-stripe thread writes.
   * MaxCorrs: columns sharded; each device computes significance for
     its seed-column shard against the full group matrix; the final
     elementwise max over devices mirrors the reference's thread merge
@@ -27,13 +27,13 @@ from ..ops import banded_realign as br
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
+    """A 1-D 'rows' mesh over the first n devices of the default
+    backend; raises when it has fewer."""
     devs = jax.devices()
     n = n_devices or len(devs)
     if len(devs) < n:
-        # virtual CPU mesh (xla_force_host_platform_device_count)
-        devs = jax.devices("cpu")
-    if len(devs) < n:
-        raise ValueError(f"need {n} devices, have {len(devs)}")
+        raise ValueError(f"need {n} {devs[0].platform} devices, have "
+                         f"{len(devs)}")
     return Mesh(np.array(devs[:n]), ("rows",))
 
 
@@ -78,15 +78,17 @@ def sharded_realign_step(mesh: Mesh, ncols: int, bandwidth: int):
 
 def sharded_block_realign(mesh: Mesh, bandwidth: int, mode: str = "exact",
                           chunk: int = 256, widen: int = 1,
-                          kernel: str = "xla", interpret: bool = False):
+                          kernel: str = "xla"):
     """Production mesh step for BatchedRealigner: the block's rows are
     sharded over the mesh 'rows' axis, the column histogram is
-    replicated, and the count delta is psum'd over ICI — the collective
-    analogue of the reference's disjoint-stripe thread writes with
-    merge-by-sum (MaxCorrelation.c thread pattern; PW_ReAligner stripes).
+    replicated, and the count delta is psum'd across the devices — the
+    collective analogue of the reference's disjoint-stripe thread
+    writes with merge-by-sum (MaxCorrelation.c thread pattern;
+    PW_ReAligner stripes).
 
-    The DP math is the identical XLA fill + backtrack the single-device
-    engine runs, so the block-Jacobi trajectory is bit-equal to the
+    The DP math is the identical fill + walk the single-device engine
+    runs (staircase: the fill `kernel` names, ops/staircase_realign.
+    fill_for), so the block-Jacobi trajectory is bit-equal to the
     unsharded path (tested in tests/test_sharded.py).
 
     Returns a jitted fn(counts [Cp,6], rows_old [B,Cp], seqs [B,L],
@@ -94,42 +96,25 @@ def sharded_block_realign(mesh: Mesh, bandwidth: int, mode: str = "exact",
     valid [B], ncols) -> (new_rows, iy, ib, inn, delta[Cp,6]) with B
     divisible by the mesh size; rows with valid=0 (padding duplicates)
     are excluded from the delta.
-
-    kernel="pallas" (staircase only) runs the production TPU kernel
-    inside each shard — packed time-major codes consumed directly by
-    the backtrack; per-shard rows must be a multiple of pallas BR.
     """
-    if mode == "staircase":
-        from ..ops import staircase_realign as sr
-        if kernel == "pallas":
-            from ..ops import pallas_backtrack as pb
-            from ..ops import pallas_realign as pr
+    from ..ops import staircase_realign as sr
     w_codes = bandwidth + (widen * chunk if mode == "staircase" else 0)
-    tmp = kernel == "pallas" and mode == "staircase"
+    fill = sr.fill_for(kernel)
 
     def local(counts, rows_old, seqs, ways, lengths, anf_full,
               entry_bound, valid, ncols):
         if mode == "staircase":
-            if tmp:
-                codes, fband, fanf = pr.staircase_fill_pallas(
-                    counts, rows_old, seqs, ways, lengths, ncols,
-                    bandwidth=bandwidth, chunk=chunk, widen=widen,
-                    time_major=True, packed=True, interpret=interpret)
-            else:
-                codes, fband, fanf = sr.staircase_fill(
-                    counts, rows_old, seqs, ways, lengths, ncols,
-                    bandwidth=bandwidth, chunk=chunk, widen=widen)
+            codes, fband, fanf = fill(
+                counts, rows_old, seqs, ways, lengths, ncols,
+                bandwidth=bandwidth, chunk=chunk, widen=widen)
+            new_rows, best, iy, ib, inn = sr.entry_and_walk(
+                codes, fband, fanf, seqs, anf_full, entry_bound,
+                lengths, ncols, cpad=rows_old.shape[1],
+                bandwidth=w_codes, chunk=chunk)
         else:
             codes, fband, fanf = br.banded_fill(
                 counts, rows_old, seqs, ways, lengths, ncols,
                 bandwidth=bandwidth)
-        if tmp:
-            # per-shard Pallas walk backtrack on the packed codes
-            new_rows, best, iy, ib, inn = pb.entry_and_backtrack_pallas(
-                codes, fband, fanf, seqs, anf_full, entry_bound,
-                lengths, ncols, cpad=rows_old.shape[1],
-                bandwidth=w_codes, chunk=chunk, interpret=interpret)
-        else:
             new_rows, best, iy, ib, inn = br.entry_and_backtrack(
                 codes, fband, fanf, seqs, anf_full, entry_bound,
                 lengths, ncols, cpad=rows_old.shape[1],
@@ -157,7 +142,7 @@ def sharded_block_realign(mesh: Mesh, bandwidth: int, mode: str = "exact",
 def sharded_maxcorr_scores(mesh: Mesh):
     """Column-sharded group-intersection scores: each device holds a
     shard of seed groups, matmuls against the replicated full group
-    matrix (MXU), and the global per-group max merges with a pmax.
+    matrix, and the global per-group max merges with a pmax.
 
     This is the collective primitive; the PRODUCTION sharded MaxCorrs —
     the full gated significance scan (seed gates, >=gap pair distance,

@@ -26,6 +26,7 @@ class PipelineResult:
     boundaries: list = field(default_factory=list)
     window_results: dict = field(default_factory=dict)
     quality: dict = field(default_factory=dict)
+    realign_stats: dict = field(default_factory=dict)
 
 
 def run_pipeline(cfg: PipelineConfig, workdir: str,
@@ -88,10 +89,11 @@ def run_pipeline(cfg: PipelineConfig, workdir: str,
         import jax
         jax.profiler.stop_trace()
     paths["msareal"] = msareal_path
+    res.realign_stats = rstats
     progress(f"[realign] {len(log) - 1} rounds, score "
              f"{log[0]} -> {log[-1]}, width {best.shape[1]}"
-             + (f", {rstats.get('cells_per_s', 0):.2e} cells/s"
-                if rstats else ""))
+             + (f", {rstats['cells_per_s']:.2e} cells/s, route "
+                f"{rstats['route']}" if rstats else ""))
 
     msareal = rio.read_msa(msareal_path)
     bounds = window.window_boundaries(msareal, cfg.window)
@@ -99,10 +101,11 @@ def run_pipeline(cfg: PipelineConfig, workdir: str,
     progress(f"[window] boundaries {bounds}")
 
     # Device path pays off when the row dimension makes the pairwise
-    # matmuls MXU-bound; the exact float64 host path wins for small
-    # problems (and always on CPU-only backends).
-    import jax
-    use_dev = (jax.default_backend() != "cpu"
+    # matmuls the bulk of the work; the exact float64 host path wins
+    # for small problems (and always on the CPU platform). The gate is
+    # not yet measured on the GPU.
+    from . import platform
+    use_dev = (platform.on_gpu()
                and msareal.shape[0] >= 512
                and msareal.shape[1] * msareal.shape[0] > 4_000_000)
     if use_dev:

@@ -1,22 +1,50 @@
 """ctypes loader for the native host ops (native/host_ops.cpp).
 
-Compiles on first use if the shared library is missing (g++ is part of
-the image); every entry point has a pure-Python fallback at its call
-site, so a failed build degrades to slow-but-correct.
+Compiles on first use with g++ (-march=native) into native/build/, under
+a name keyed to the sources and to this machine's CPU, so a tree copied
+to another host never loads a library built for a different CPU. Every
+entry point has a pure-Python fallback at its call site, so a failed
+build degrades to slow-but-correct.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))
-_SO = os.path.join(_REPO, "native", "libhostops.so")
+_NATIVE = os.path.join(_REPO, "native")
 _lib = None
 _tried = False
+
+
+def _cpu_signature() -> bytes:
+    """The CPU model and instruction-set flags -march=native compiles
+    for (first processor entry), or the architecture name where
+    /proc/cpuinfo is absent."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            text = f.read().split("\n\n")[0]
+    except OSError:
+        return platform.machine().encode()
+    keep = [ln for ln in text.splitlines()
+            if ln.startswith(("model name", "flags"))]
+    return "\n".join(keep).encode()
+
+
+def library_path() -> str:
+    """Where this machine's build of the current sources lives."""
+    h = hashlib.sha256(_cpu_signature())
+    for name in ("host_ops.cpp", "build.sh"):
+        with open(os.path.join(_NATIVE, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(_NATIVE, "build",
+                        f"libhostops-{h.hexdigest()[:16]}.so")
 
 
 def get_lib():
@@ -25,14 +53,12 @@ def get_lib():
         return _lib
     _tried = True
     try:
-        if not os.path.exists(_SO) or (
-                os.path.getmtime(_SO) <
-                os.path.getmtime(os.path.join(_REPO, "native",
-                                              "host_ops.cpp"))):
+        so = library_path()
+        if not os.path.exists(so):
             subprocess.run(
-                ["bash", os.path.join(_REPO, "native", "build.sh")],
+                ["bash", os.path.join(_NATIVE, "build.sh"), so],
                 check=True, capture_output=True)
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(so)
         i64 = ctypes.c_int64
         lib.kmeans_top5_centroids.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, i64, i64, ctypes.c_void_p]

@@ -1,15 +1,15 @@
 #!/usr/bin/env python
 """Sweep-wall vs virtual mesh size: the reachable scaling proxy.
 
-Real multi-chip hardware is unavailable in this environment, so this
-measures the production mesh realign path (BatchedRealigner(mesh=),
-rows sharded per block, count delta merged by psum —
+A CPU-only proxy for multi-card scaling: this measures the production
+mesh realign path (BatchedRealigner(mesh=), rows sharded per block,
+count delta merged by psum —
 parallel/sharded.sharded_block_realign) on the virtual CPU mesh at
 sizes {1, 2, 4, 8} over a FIXED MSA and block configuration.
 
 On a shared-core CPU mesh the devices do not add compute, so the
 interesting quantity is the OVERHEAD curve: wall(n)/wall(1) isolates
-partition + collective + padding cost that real ICI would also pay
+partition + collective + padding cost that real cards would also pay
 (the compute term is constant). The per-block psum volume is reported
 analytically: every block merges one [cpad, 6] int32 delta per device.
 
@@ -17,7 +17,7 @@ Each mesh size runs in its own subprocess (fresh XLA runtime with
 --xla_force_host_platform_device_count=<n>). Results append to
 --out (default runs/mesh_scaling.json).
 
-Usage: PYTHONPATH=/root/repo python scripts/mesh_scaling.py
+Usage: python scripts/mesh_scaling.py
 """
 from __future__ import annotations
 

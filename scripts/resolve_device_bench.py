@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Measure the resolver's devmm (MXU) routing on silicon at one
-paper-scale window against the host BLAS path (VERDICT r4 #7).
+"""Measure the resolver's devmm routing on a GPU at one paper-scale
+window against the host BLAS path.
 
 Runs resolve_window twice on the same paper-scale inputs — once with
 RR_RESOLVER_DEVICE=1 (clique/kmeans matmuls on the accelerator via
@@ -11,8 +11,8 @@ outputs are byte-identical (devmm is exact int32, so placement must
 not change a single assignment).
 
 Usage:
-  PYTHONPATH=/root/repo:$PYTHONPATH python scripts/resolve_device_bench.py \
-      [--workdir runs/paper_tpu] [--von V --bis B] [--out runs/resolve_devmm.json]
+  python scripts/resolve_device_bench.py \
+      [--workdir runs/paper] [--von V --bis B] [--out runs/resolve_devmm.json]
 """
 from __future__ import annotations
 
@@ -78,7 +78,7 @@ def run_leg(tag, dev, msa, mc, von, bis, n):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workdir", default="runs/paper_tpu")
+    ap.add_argument("--workdir", default="runs/paper")
     ap.add_argument("--name", default="Tree_1perc_30000kb_MSAreal")
     ap.add_argument("--von", type=int, default=0)
     ap.add_argument("--bis", type=int, default=0)

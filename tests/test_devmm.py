@@ -35,8 +35,7 @@ def test_operand_device_copy_reused():
 
 def test_resolver_device_route_byte_identical(monkeypatch):
     """resolve_window with every matmul forced through the jnp route
-    must emit byte-identical subdivisions to the pure-host run
-    (r2 VERDICT directive #4 acceptance)."""
+    must emit byte-identical subdivisions to the pure-host run."""
     from repeatresolver_tpu import config as C
     from repeatresolver_tpu.models import maxcorr, resolver
 

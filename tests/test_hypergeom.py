@@ -87,7 +87,7 @@ def test_caps_and_gates():
 
 
 def test_device_tail_immune_to_below_mode_overflow():
-    """Regression (ADVICE r2): a below-mode pair's running pmf product
+    """Regression: a below-mode pair's running pmf product
     grows geometrically, overflows f32 to inf, and — once the support
     bound zeroes its ratio — turns into NaN, which used to poison the
     while_loop's run.max() early exit and truncate the tail sum of

@@ -1,7 +1,7 @@
 """Multi-host process parallelism: a genuine 2-process
 jax.distributed CPU run of the windowed resolve must produce
 subdivision files byte-identical to the single-process run
-(VERDICT r1 item 8; reference operator parallelism README.md:104-106)."""
+(the reference's operator parallelism, README.md:104-106)."""
 import os
 import shutil
 import subprocess

@@ -1,19 +1,10 @@
-"""Parity of the Pallas walk-kernel backtrack with the XLA backtrack.
+"""Parity of the staircase walk with the generic backtrack.
 
-The production TPU step is staircase-Pallas fill (packed time-major)
-+ pallas_backtrack.entry_and_backtrack_pallas; every output must be
-bit-identical to the generic banded_realign.entry_and_backtrack on the
-same DP (which is itself bit-identical to the serial reference walk —
-tests/test_batched_realigner.py). The oracle runs on the XLA staircase
-fill's unpacked codes: the two fills' move codes are bit-identical by
-construction (asserted via the final band rows here and cell-level in
-test_batched_realigner).
-
-The RETIRED oracle — banded_realign's packed record/replay backtrack —
-is not exercised on CPU: its record while_loop deadlocks XLA:CPU under
-jaxlib 0.9.0 (all threads futex-parked before the first trip; the same
-program compiles and runs on the TPU backend). The production path no
-longer uses it.
+The device realign step is a staircase fill (packed time-major codes)
++ staircase_realign.entry_and_walk; every output must be bit-identical
+to the generic banded_realign.entry_and_backtrack on the same DP
+(itself bit-identical to the serial reference walk —
+tests/test_batched_realigner.py), which reads the same codes unpacked.
 """
 import numpy as np
 import pytest
@@ -45,21 +36,22 @@ def _inputs(seed, b, tlen, c, w, t, len_lo=0.5, gapdense=False,
     return counts, msa, seqs, ways, lengths
 
 
+def unpack_codes(packed, length):
+    """[Lpad/16, B, W2] packed words -> [B, length, W2] uint8 codes."""
+    p = np.asarray(packed)
+    x = np.arange(length)
+    codes = (p[x // 16] >> (2 * (x % 16))[:, None, None]) & 3
+    return np.transpose(codes, (1, 0, 2)).astype(np.uint8)
+
+
 def _both(counts, msa, seqs, ways, lengths, c, w, t):
     from repeatresolver_tpu.ops import banded_realign as br
-    from repeatresolver_tpu.ops import pallas_backtrack as pb
-    from repeatresolver_tpu.ops import pallas_realign as pr
     from repeatresolver_tpu.ops import staircase_realign as sr
 
-    b = msa.shape[0]
-    ck, bk, ak = pr.staircase_fill_pallas(
-        counts, msa, seqs, ways, lengths, np.int32(c), bandwidth=w,
-        chunk=t, interpret=True, time_major=True, packed=True)
-    cx, bx, ax = sr.staircase_fill(
+    b, l = seqs.shape
+    ck, bk, ak = sr.staircase_fill(
         counts, msa, seqs, ways, lengths, np.int32(c), bandwidth=w,
         chunk=t)
-    np.testing.assert_array_equal(np.asarray(bk), np.asarray(bx))
-
     w2 = w + t
     anf_full = sr.staircase_anf(ways, lengths, w, t, c)
     bh = w // 2
@@ -67,11 +59,11 @@ def _both(counts, msa, seqs, ways, lengths, c, w, t):
     entry_bound = np.maximum(-1, last_way - bh).astype(np.int32)
     cpad = c + 64
     ref = [np.asarray(o) for o in br.entry_and_backtrack(
-        cx, bx, ax, seqs, anf_full, entry_bound, lengths, np.int32(c),
-        cpad=cpad, bandwidth=w2)]
-    got = [np.asarray(o) for o in pb.entry_and_backtrack_pallas(
+        unpack_codes(ck, l), bk, ak, seqs, anf_full, entry_bound,
+        lengths, np.int32(c), cpad=cpad, bandwidth=w2)]
+    got = [np.asarray(o) for o in sr.entry_and_walk(
         ck, bk, ak, seqs, anf_full, entry_bound, lengths, np.int32(c),
-        cpad=cpad, bandwidth=w2, chunk=t, interpret=True)]
+        cpad=cpad, bandwidth=w2, chunk=t)]
     return ref, got
 
 

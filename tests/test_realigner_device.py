@@ -5,10 +5,10 @@ DeviceResidentRealigner keeps the MSA in device memory and applies
 blocks, splices, and compaction on device; given the same block order
 and flush points its math is the host path's math, so the per-sweep
 (mille, uno) trajectory and the final MSA must be bit-equal to
-BatchedRealigner(kernel="pallas", mode="staircase") — including the
+BatchedRealigner(mode="staircase") — including the
 fixed staircase slack (`widen`), which is drift headroom, not extra
 band, and therefore result-neutral for any value covering the drift.
-Runs on the CPU interpreter."""
+Runs on the CPU through the XLA fill."""
 import numpy as np
 
 from repeatresolver_tpu.config import RealignerConfig
@@ -34,7 +34,7 @@ def make_msa(seed, rows=16, tlen=300, d=0.06):
 def _run_host(msa, sweeps, bs, band, chunk):
     eng = realigner.BatchedRealigner(
         msa.copy(), bandwidth=band, block_rows=bs, mode="staircase",
-        chunk=chunk, kernel="pallas")
+        chunk=chunk, kernel="xla")
     eng.ent_al_gapper()
     log = []
     for _ in range(sweeps):
@@ -54,8 +54,7 @@ def _run_resident(msa, sweeps, bs, band, chunk, widen=None):
     try:
         eng = DeviceResidentRealigner(
             msa.copy(), bandwidth=band, block_rows=bs,
-            mode="staircase", chunk=chunk, kernel="pallas",
-            interpret=True)
+            mode="staircase", chunk=chunk, kernel="xla")
         eng.ent_al_gapper()
         log = []
         for _ in range(sweeps):
@@ -110,7 +109,7 @@ def test_resident_exact_fallback_parity():
 
 
 def test_resident_through_realign_batched():
-    """realign_batched routes pallas+staircase to the resident engine
+    """realign_batched routes the staircase fills to the resident engine
     (RR_RESIDENT default); the full loop — best tracking, anneal,
     final gapper — must produce a final MSA at least as good as the
     host path's and a valid count invariant."""
@@ -120,13 +119,13 @@ def test_resident_through_realign_batched():
     log_r: list = []
     out_r = realigner.realign_batched(
         msa.copy(), cfg, block_rows=4, mode="staircase",
-        kernel="pallas", score_log=log_r)
+        kernel="xla", score_log=log_r)
     os.environ["RR_RESIDENT"] = "0"
     try:
         log_h: list = []
         out_h = realigner.realign_batched(
             msa.copy(), cfg, block_rows=4, mode="staircase",
-            kernel="pallas", score_log=log_h)
+            kernel="xla", score_log=log_h)
     finally:
         os.environ.pop("RR_RESIDENT", None)
     assert log_r == log_h
@@ -141,7 +140,7 @@ def _run_resident_eng(msa, sweeps, bs, band, chunk, **kw):
     )
     eng = DeviceResidentRealigner(
         msa.copy(), bandwidth=band, block_rows=bs, mode="staircase",
-        chunk=chunk, kernel="pallas", interpret=True, **kw)
+        chunk=chunk, kernel="xla", **kw)
     eng.ent_al_gapper()
     log = []
     for _ in range(sweeps):
@@ -206,7 +205,7 @@ def test_cap_crossing_flush_converges():
     )
     host = realigner.BatchedRealigner(
         msa.copy(), bandwidth=band, block_rows=bs, mode="staircase",
-        chunk=chunk, kernel="pallas")
+        chunk=chunk, kernel="xla")
     host.ent_al_gapper()
     best_h = host.overall_pair()
     for _ in range(12):
@@ -217,7 +216,7 @@ def test_cap_crossing_flush_converges():
         best_h = p
     eng = DeviceResidentRealigner(
         msa.copy(), bandwidth=band, block_rows=bs, mode="staircase",
-        chunk=chunk, kernel="pallas", interpret=True)
+        chunk=chunk, kernel="xla")
     eng._flush_cap = 4               # force mid-sweep flushes
     eng.ent_al_gapper()
     best_d = eng.overall_pair()
@@ -246,15 +245,15 @@ def test_widen_state_adopted_and_converted():
     # same bs: verbatim adoption
     b = DeviceResidentRealigner(
         msa.copy(), bandwidth=band, block_rows=bs, mode="staircase",
-        chunk=chunk, kernel="pallas", interpret=True, widen_state=ws)
+        chunk=chunk, kernel="xla", widen_state=ws)
     b._upload()
     b._ensure_order_device()
     np.testing.assert_array_equal(b._block_widen, ws[1])
     # halved bs: each new block inherits the covering old block's max
     b2 = DeviceResidentRealigner(
         msa.copy(), bandwidth=band, block_rows=bs // 2,
-        mode="staircase", chunk=chunk, kernel="pallas",
-        interpret=True, widen_state=ws)
+        mode="staircase", chunk=chunk, kernel="xla",
+        widen_state=ws)
     b2._upload()
     b2._ensure_order_device()
     r = msa.shape[0]
@@ -293,7 +292,7 @@ def test_resume_keeps_learned_ladder(tmp_path):
     cfg2 = RealignerConfig(bandwidth=96, max_rounds=2)
     realigner.realign_batched(
         msa.copy(), cfg2, block_rows=8, mode="staircase",
-        kernel="pallas", checkpoint_path=ckp)
+        kernel="xla", checkpoint_path=ckp)
     c = ck.RealignCheckpoint.load(ckp)
     assert c.widen is not None and c.widen_bs > 0
     assert c.block_rows > 0
@@ -305,7 +304,7 @@ def test_resume_keeps_learned_ladder(tmp_path):
     cfg = RealignerConfig(bandwidth=96)
     out_res = realigner.realign_batched(
         msa.copy(), cfg, block_rows=8, mode="staircase",
-        kernel="pallas", checkpoint_path=ckp, resume=True)
+        kernel="xla", checkpoint_path=ckp, resume=True)
     realigner.validate_counts(
         out_res, realigner.symbol_counts(out_res).astype(np.int64))
     from repeatresolver_tpu.models.realigner import overall_score_pair

@@ -82,9 +82,9 @@ def test_mesh_realign_trajectory_matches_single_device(mode):
 @pytest.mark.skipif(len(jax.devices()) < 8,
                     reason="needs the 8-device virtual mesh")
 def test_mesh_realign_pallas_kernel_matches_xla():
-    """The production TPU mesh path (Pallas staircase inside each
-    shard, packed time-major codes) must reproduce the XLA mesh
-    trajectory bit-for-bit (interpret mode on the CPU mesh)."""
+    """The mesh staircase path (fill + walk inside each shard, packed
+    time-major codes) must reproduce the single-device staircase run —
+    the resident engine — bit for bit."""
     from test_batched_realigner import make_msa
 
     from repeatresolver_tpu.config import RealignerConfig
@@ -95,14 +95,46 @@ def test_mesh_realign_pallas_kernel_matches_xla():
     mesh = sharded.make_mesh(8)
     log1: list = []
     ref = realigner.realign_batched(msa.copy(), cfg, score_log=log1,
-                                    mode="staircase", kernel="xla",
-                                    mesh=mesh)
+                                    mode="staircase", kernel="xla")
     log2: list = []
     out = realigner.realign_batched(msa.copy(), cfg, score_log=log2,
-                                    mode="staircase", kernel="pallas",
+                                    mode="staircase", kernel="xla",
                                     mesh=mesh)
     assert log1 == log2
     np.testing.assert_array_equal(ref, out)
+
+
+@pytest.mark.skipif(len(jax.devices()) < 8,
+                    reason="needs the 8-device virtual mesh")
+def test_mesh_staircase_over_ladder_drift_takes_exact_band():
+    """A block whose drift exceeds every widen rung must run the exact
+    band on the mesh too (not a truncated staircase window), so the
+    mesh staircase trajectory still equals the exact band's."""
+    from test_batched_realigner import make_msa
+
+    from repeatresolver_tpu.models import realigner
+
+    msa = make_msa(7, rows=8, tlen=360)
+    # row 0: 12 bases spread over ~340 columns -> single-chunk drift
+    # 272 > 16 * chunk(16) = 256, beyond the widen ladder
+    rng = np.random.default_rng(41)
+    row = np.full(360, 4, np.int8)
+    cols = np.sort(rng.choice(np.arange(5, 345), 12, replace=False))
+    row[cols] = rng.integers(0, 4, 12).astype(np.int8)
+    msa[0] = row
+    logs = {}
+    for mode, mesh in (("exact", None),
+                       ("staircase", sharded.make_mesh(8))):
+        eng = realigner.BatchedRealigner(
+            msa.copy(), bandwidth=96, block_rows=2, mode=mode,
+            kernel="xla", chunk=16, mesh=mesh)
+        eng.ent_al_gapper()
+        log = [eng.overall_pair()]
+        for _ in range(3):
+            eng.sweep()
+            log.append(eng.overall_pair())
+        logs[mode] = log
+    assert logs["staircase"] == logs["exact"]
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8,
@@ -131,8 +163,8 @@ def test_mesh_realign_uneven_block_padding():
 @pytest.mark.skipif(len(jax.devices()) < 8,
                     reason="needs the 8-device virtual mesh")
 def test_mesh_blocks_respect_hbm_budget(monkeypatch):
-    """The HBM-budget block splitting must also apply on the mesh path
-    (r2 VERDICT weak #7): with a tiny RR_DEVICE_HBM_BUDGET every mesh
+    """The device-memory block splitting must also apply on the mesh
+    path: with a tiny RR_DEVICE_HBM_BUDGET every mesh
     block is recursively halved, and the trajectory still matches the
     single-device run under the equivalent per-shard budget (the mesh
     bound divides the block footprint by the shard count)."""

@@ -1,7 +1,7 @@
 """Staircase == exact-band equivalence property.
 
-The staircase window (staircase_realign / pallas_realign) is a pure
-performance transform of the exact banded recurrence
+The staircase window (ops/staircase_realign, its XLA and CUDA fills) is
+a pure performance transform of the exact banded recurrence
 (banded_realign.banded_fill, pinned to the serial oracle and the
 reference C tool by the golden suite): candidates are masked to each
 position's reference band [way-bh, way-bh+w), predecessors carry the
@@ -10,15 +10,14 @@ left-shift must carry OLD window lane d-1 as the new window's lane-0
 diagonal predecessor (banded_realign reads j = iota + d - 1 every
 step). Without that carry a path hugging the band bottom at a chunk
 boundary is silently lost and the staircase picks a worse rewrite:
-before the fix this property failed on 26/60 random cases and made
-paper-scale staircase trajectories diverge from exact mode (and from
-each other across chunk sizes — the round-5 tpu_converge parity
-failure, runs/tpu_converge).
+without it this property fails on 26/60 random cases and staircase
+trajectories diverge from exact mode and from each other across chunk
+sizes.
 
-With the carry, staircase results are bit-equal to exact for ANY
-(chunk, covering widen) — chunk and widen are performance knobs only,
-which is what makes the CPU exact path, the XLA staircase, and the
-Pallas kernel (chunk 128) interchangeable oracles of one another.
+With the carry, the staircase fill + walk results are bit-equal to
+exact for ANY (chunk, covering widen) — chunk and widen are
+performance knobs only, which is what makes the CPU exact path and the
+GPU staircase route interchangeable oracles of one another.
 """
 import numpy as np
 import pytest
@@ -70,9 +69,9 @@ def test_staircase_matches_exact_any_chunk(seed, chunk):
                                      lengths, ncols, bandwidth=W,
                                      chunk=chunk, widen=widen)
     anf_s = sr.staircase_anf(ways, lengths, W, chunk, c)
-    stair = br.entry_and_backtrack(cs, fbs, fas, seqs, anf_s, eb,
-                                   lengths, ncols, cpad=c,
-                                   bandwidth=W + widen * chunk)
+    stair = sr.entry_and_walk(cs, fbs, fas, seqs, anf_s, eb, lengths,
+                              ncols, cpad=c, bandwidth=W + widen * chunk,
+                              chunk=chunk)
     for name, a, s in zip(("rows", "best", "iy", "ib", "inn"),
                           exact, stair):
         a, s = np.asarray(a), np.asarray(s)
